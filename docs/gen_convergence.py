@@ -1,7 +1,8 @@
 """Generate the reference's headline convergence diagnostic (q_k ratio table)
 for MGMC vs SSOR on a 32x32 posterior, CPU float64."""
 import sys
-sys.path.insert(0, "/root/repo")
+from pathlib import Path
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)

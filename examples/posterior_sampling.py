@@ -4,7 +4,7 @@ Build a Matern-like GMRF prior on a 2d lattice, condition it on point
 measurements, and estimate the posterior mean/variance field with batched MGMC
 chains - the library-API version of the ``drivers.mgmc`` experiment.
 
-Run: ``python examples/posterior_sampling.py`` (CPU ok; uses the TPU if present).
+Run: ``python examples/posterior_sampling.py`` (CPU ok; uses the GPU if present).
 """
 
 import sys

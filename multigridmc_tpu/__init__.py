@@ -1,6 +1,6 @@
-"""multigridmc_tpu - a TPU-native Multigrid Monte Carlo framework.
+"""multigridmc_tpu - a Multigrid Monte Carlo framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 nilsfriess/MultigridMC: sampling from high-dimensional lattice Gaussian
 distributions pi(x) ~ exp(-1/2 x^T Q x + f^T x) with Multigrid Monte Carlo,
 SOR/SSOR Gibbs sampling and Cholesky samplers, plus the matching deterministic
@@ -9,7 +9,7 @@ multigrid solver stack.
 Design: fields are dense arrays over interior lattice vertices; operators are
 stencils applied by fused shift-multiply-accumulate; sequential SOR sweeps become
 multi-colour parallel sweeps; Galerkin coarsening is computed by operator probing;
-everything jits, vmaps (batched chains) and shards over a TPU device mesh.
+everything jits, vmaps (batched chains) and shards over a device mesh.
 """
 
 from .lattice import Lattice

@@ -1,6 +1,6 @@
 """Generate a random measurement configuration file.
 
-TPU-native counterpart of ``python/generate_measurements.py``: draws random,
+Counterpart of ``python/generate_measurements.py``: draws random,
 well-separated measurement locations in the unit square/cube (plus one sample
 location), random measured means and variances, and emits them in libconfig
 syntax compatible with :mod:`multigridmc_tpu.utils.config` and the reference's

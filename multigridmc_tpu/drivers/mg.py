@@ -1,6 +1,6 @@
 """Deterministic multigrid solve driver.
 
-TPU-native counterpart of ``src/driver_mg.cc``: build the operator from config,
+Counterpart of ``src/driver_mg.cc``: build the operator from config,
 solve ``A x = b`` with multigrid-preconditioned Richardson for a random rhs, and
 write ``solution.vtk``.
 
@@ -31,7 +31,7 @@ def main(argv=None):
         sys.exit(-1)
     print()
     print("+------------------------------+")
-    print("! Multigrid solver (TPU-native)!")
+    print("!       Multigrid solver       !")
     print("+------------------------------+")
     print()
     config = load_config(argv[0])

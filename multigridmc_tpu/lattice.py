@@ -1,9 +1,9 @@
-"""Structured lattice geometry for the TPU-native MultigridMC framework.
+"""Structured lattice geometry for the MultigridMC framework.
 
 The reference implementation (``src/lattice/lattice.hh:18-129`` and its 1d/2d/3d
 subclasses) exposes linear<->Euclidean index conversion for *interior* vertices of a
 d-dimensional cell lattice on [0,1]^d, neighbour shifts, fine/coarse vertex
-correspondence, and coarsening.  On TPU we never materialise linear indices: fields
+correspondence, and coarsening.  Here we never materialise linear indices: fields
 live as dense arrays over the interior-vertex grid, and all index algebra becomes
 array slicing.  This module provides the small amount of geometry the rest of the
 framework needs (shapes, spacings, coordinates, coarsening rules) plus the

@@ -1,6 +1,6 @@
 """Correlation-length models kappa(x) for the shifted-Laplace precision operators.
 
-TPU-native counterpart of ``src/linear_operator/correlationlength_model.hh``:
+Counterpart of ``src/linear_operator/correlationlength_model.hh``:
 models are vectorised callables evaluating ``kappa^2(x)`` on whole coordinate
 arrays at once (shape ``(..., dim)`` -> ``(...)``), instead of per-point virtual
 dispatch.

@@ -1,6 +1,6 @@
 """Posterior precision operators from point measurements.
 
-TPU-native counterpart of ``src/linear_operator/measured_operator.{hh,cc}``.
+Counterpart of ``src/linear_operator/measured_operator.{hh,cc}``.
 Given a prior precision Q (a stencil operator) and m measurements
 ``y = B^T x + e`` with ``e ~ N(0, Sigma)``, the posterior precision is
 
@@ -20,7 +20,7 @@ Each column of B is a measurement vector on the lattice
   (``measured_operator.cc:31-46``).
 
 B is stored dense as ``(m, *grid)`` - m is small, and dense columns make
-``B^T x`` one small contraction on TPU.
+``B^T x`` one small contraction on the device.
 """
 
 from __future__ import annotations
@@ -111,24 +111,25 @@ def measurement_vector(lattice: Lattice, x0, radius: float) -> np.ndarray:
 
 
 def _default_stencil_solve(op: StencilOperator):
-    """Solver for the *stencil* (prior) part: dense Cholesky for small lattices,
-    CG otherwise.  Used by the exact-posterior diagnostics below."""
+    """Host float64 solver for the *stencil* (prior) part: dense Cholesky for
+    small lattices, a sparse LU factorisation (minimum-degree ordering of the
+    symmetric pattern) otherwise.  Used by the exact-posterior diagnostics
+    below."""
+    import scipy.linalg
+
     n = op.lattice.nvertex
+    vshape = op.lattice.vshape
     if n <= 4096:
-        A = op.to_dense_stencil()
-        import scipy.linalg
+        factor = scipy.linalg.cho_factor(op.to_dense_stencil())
+        return lambda v: scipy.linalg.cho_solve(factor, np.asarray(v).reshape(-1)).reshape(vshape)
+    import scipy.sparse.linalg
 
-        factor = scipy.linalg.cho_factor(A)
-        return lambda v: scipy.linalg.cho_solve(factor, np.asarray(v).reshape(-1)).reshape(
-            op.lattice.vshape
-        )
-    from ..solvers.loop import CGSolver, IterativeSolverParameters
+    from ..reference import stencil_matrix
 
-    stencil_only = dataclasses.replace(op, lowrank=None)
-    solver = CGSolver(
-        stencil_only, params=IterativeSolverParameters(rtol=1e-12, atol=1e-30, maxiter=10000)
-    )
-    return lambda v: np.asarray(solver.solve(jnp.asarray(v)).x)
+    lu = scipy.sparse.linalg.splu(
+        stencil_matrix(dataclasses.replace(op, lowrank=None)).tocsc(),
+        permc_spec="MMD_AT_PLUS_A")
+    return lambda v: lu.solve(np.asarray(v, dtype=np.float64).reshape(-1)).reshape(vshape)
 
 
 def posterior_mean(op: StencilOperator, xbar, y, solve=None) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Assembly of the prior precision operators as lattice stencils.
 
-TPU-native counterparts of the reference operator family:
+Counterparts of the reference operator family:
 
 * :func:`shiftedlaplace_fd`  - ``src/linear_operator/shiftedlaplace_fd_operator.cc:33-56``
 * :func:`shiftedlaplace_fem` - ``src/linear_operator/shiftedlaplace_fem_operator.cc:43-140``

@@ -1,6 +1,6 @@
 """Intergrid transfer operators: d-linear prolongation and its transpose.
 
-TPU-native counterpart of ``src/intergrid/intergrid_operator.hh:43-161`` and
+Counterpart of ``src/intergrid/intergrid_operator.hh:43-161`` and
 ``intergrid_operator_linear.cc:13-30``.  The reference stores an explicit 3^d
 stencil with indirection arrays; here both transfers are expressed as
 *tensor-product matrix contractions*: per dimension a banded ``(n_c, n_f)``
@@ -10,9 +10,9 @@ matrix ``R1`` with row i = {0.5, 1, 0.5} centred at fine index ``2 i + 1``
     restrict    f_c = R1 . r . R1^T        (one contraction per dimension)
     prolongate  x_f = R1^T . x_c . R1
 
-This is the TPU-native form: each contraction is an MXU matmul that performs
-the {0.5, 1, 0.5} stencil *and* the stride-2 subsample/interleave in one op -
-no strided lane slicing, no 3^d shifted copies.  Restriction is the exact
+Each contraction is one matmul that performs the {0.5, 1, 0.5} stencil *and*
+the stride-2 subsample/interleave in one op - no strided slicing, no 3^d
+shifted copies.  Restriction is the exact
 transpose of prolongation by construction (same ``R1`` per dimension), as
 verified by the adjointness test (cf. ``src/intergrid/test_intergrid.hh:155-171``).
 

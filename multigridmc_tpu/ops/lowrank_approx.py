@@ -1,6 +1,6 @@
 """Low-rank approximation of covariance matrices: pivoted Cholesky and friends.
 
-TPU-native counterpart of the reference prototype ``python/pivoted_cholesky.py``
+Counterpart of the reference prototype ``python/pivoted_cholesky.py``
 (Harbrecht, Peters & Schneider 2012): Crout Cholesky, LDL^T, *pivoted* Cholesky
 with greedy diagonal pivoting and error tracking, and a truncated-SVD error
 curve for comparison.

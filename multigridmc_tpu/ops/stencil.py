@@ -1,4 +1,4 @@
-"""Stencil linear operators on dense lattice fields - the TPU-native replacement
+"""Stencil linear operators on dense lattice fields - the replacement
 for the reference's CSR ``LinearOperator`` (``src/linear_operator/linear_operator.hh``).
 
 Every operator in the reference (shifted-Laplace FD/FEM, squared shifted-Laplace,
@@ -89,9 +89,10 @@ class LowRank:
 
     # The low-rank (Woodbury) algebra is precision-critical: with near-exact
     # measurements (Sigma ~ 1e-6) the correction nearly projects out the
-    # measured directions, and TPU default-precision (bf16 MXU) contractions
-    # perturb the splitting enough to destabilise the Gibbs iteration.
-    # All B contractions therefore force full float32 precision.
+    # measured directions, and reduced-precision contractions (TF32 on a GPU
+    # at the default precision) perturb the splitting enough to destabilise
+    # the Gibbs iteration.  All B contractions therefore force full float32
+    # precision.
     def matvec(self, x: jax.Array) -> jax.Array:
         """Compute ``B Sigma^{-1} B^T x`` for a grid field x (extra leading batch dims ok)."""
         w = self.bt(x) / self.Sigma_diag
@@ -111,7 +112,10 @@ class LowRank:
 
     def diag(self) -> jax.Array:
         """Diagonal of ``B Sigma^{-1} B^T`` as a grid field."""
-        return jnp.einsum("m...,m...->...", self.B, self.B / self.Sigma_diag.reshape((-1,) + (1,) * (self.B.ndim - 1)))
+        return jnp.einsum(
+            "m...,m...->...", self.B,
+            self.B / self.Sigma_diag.reshape((-1,) + (1,) * (self.B.ndim - 1)),
+            precision=jax.lax.Precision.HIGHEST)
 
 
 @jax.tree_util.register_dataclass
@@ -119,7 +123,7 @@ class LowRank:
 class StencilOperator:
     """Symmetric positive-definite lattice operator ``A = A_stencil + B Sigma^{-1} B^T``.
 
-    TPU-native counterpart of the reference ``LinearOperator``
+    Counterpart of the reference ``LinearOperator``
     (``src/linear_operator/linear_operator.hh:28-198``).
     """
 

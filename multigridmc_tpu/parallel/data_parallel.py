@@ -1,45 +1,31 @@
-"""Chains-data-parallel execution of the single-chip MGMC engine.
+"""Chains-data-parallel execution of the single-device MGMC engine.
 
-The flagship single-chip sampler couples three engines the GSPMD path cannot
-express: fused level-visit Pallas kernels (finest level), the distilled
-affine subtree (coarsest levels), and the composed XLA cycle in between.
-For multi-chip *sampling* the natural mesh is pure data parallelism over
-chains - every chain is an independent MCMC chain, the lattice fits one chip,
-and no halo traffic exists at all.  This module runs the full single-chip
-sampler per shard inside ``shard_map``:
+For multi-device *sampling* the natural mesh is pure data parallelism over
+chains - every chain is an independent MCMC chain, the lattice fits one
+device, and no halo traffic exists at all.  This module runs the full
+single-device sampler (composed cycle plus the distilled affine subtree) per
+shard inside ``shard_map``:
 
     mesh: 1d over the chains axis
     x:    (C, *v) sharded P("chains", ...)
     key:  per-shard independent stream (step key folded with the shard index,
           the same shard-linear-index scheme as parallel/cycle.py)
 
-Because each shard executes the complete single-device program, the fused
-Pallas kernels and the distilled subtree stay active (``fused=True`` overrides
-their single-device auto gate) - the multi-chip path no longer forfeits the
-single-chip engine (round-2 review item 4).  Lattice-sharded execution (for
-problems larger than one chip's HBM) remains the explicit-halo
-``ShardedMGMCSampler``; see the design note there for why *full-visit* fusion
-cannot cross lattice shards (the mid-visit Woodbury ``B^T x`` is a global
-reduction, and per-colour halos would have to interleave with kernel phases).
+Lattice-sharded execution (for problems larger than one device's memory)
+remains the explicit-halo ``ShardedMGMCSampler``.
 
-The reference has no parallel execution of any kind (SURVEY.md section 2.2);
-this layer is the TPU-native scaling design the blueprint calls for.
+The reference has no parallel execution of any kind (SURVEY.md section 2.2).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops.stencil import StencilOperator
 from ..samplers.mgmc import MultigridMCSampler
@@ -55,7 +41,7 @@ def chains_mesh(n_devices: Optional[int] = None, devices=None,
 
 
 class DataParallelMGMCSampler:
-    """Run a full single-chip :class:`MultigridMCSampler` per chains shard.
+    """Run a full single-device :class:`MultigridMCSampler` per chains shard.
 
     ``apply(key, f, x)`` takes ``x`` of shape ``(C, *vshape)`` with ``C``
     divisible by the mesh size; ``f`` is a shared (replicated) rhs field.
@@ -70,8 +56,6 @@ class DataParallelMGMCSampler:
         nlevel: int,
         mesh: Mesh,
         *,
-        fused: object = True,
-        interpret: bool = False,
         distill: object = True,
         **sampler_kwargs,
     ):
@@ -83,19 +67,10 @@ class DataParallelMGMCSampler:
         self.mesh = mesh
         self.axis = mesh.axis_names[0]
         self.op = op
-        # force-enable the single-chip engines by default: the auto gates
-        # check len(jax.devices()) == 1, which is wrong inside shard_map where
-        # each shard owns exactly one device's slice.  (CPU statistical tests
-        # pass fused=False: the stochastic kernels' on-chip PRNG has no CPU
-        # interpret lowering - the real kernels are validated on TPU by
-        # native/validate_dp_tpu.py.)
+        # distill=True by default: each shard runs the whole single-device
+        # sampler on its own device, whatever the platform
         self.sampler = MultigridMCSampler(
-            op, nlevel,
-            fused=fused,
-            fused_interpret=interpret,
-            distill=distill,
-            **sampler_kwargs,
-        )
+            op, nlevel, distill=distill, **sampler_kwargs)
         self._apply = self._make_apply()
 
     def _make_apply(self):
@@ -107,12 +82,8 @@ class DataParallelMGMCSampler:
             k = jax.random.fold_in(key, jax.lax.axis_index(axis))
             return self.sampler.apply(k, f, x)
 
-        try:
-            fn = shard_map(body, mesh=self.mesh, in_specs=(P(), P(), xspec),
-                           out_specs=xspec, check_vma=False)
-        except TypeError:  # older jax: check_rep instead of check_vma
-            fn = shard_map(body, mesh=self.mesh, in_specs=(P(), P(), xspec),
-                           out_specs=xspec, check_rep=False)
+        fn = shard_map(body, mesh=self.mesh, in_specs=(P(), P(), xspec),
+                       out_specs=xspec, check_vma=False)
         return jax.jit(fn)
 
     def apply(self, key, f, x):

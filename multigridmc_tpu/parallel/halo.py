@@ -2,7 +2,7 @@
 
 The default distributed path lets XLA's SPMD partitioner insert halo exchanges
 automatically (see :mod:`multigridmc_tpu.parallel.mesh`).  This module provides
-the *explicit* building blocks; the full production multi-chip MGMC cycle built
+the *explicit* building blocks; the full multi-device MGMC cycle built
 on them (per-shard noise, Woodbury psum, restrict/prolongate, coarse
 agglomeration) lives in :mod:`multigridmc_tpu.parallel.cycle`:
 
@@ -28,10 +28,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax exposes it under experimental only
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def _ppermute_shift(x_slice, axis_name: str, direction: int):

@@ -1,12 +1,17 @@
 """Device-mesh construction for lattice domain decomposition.
 
 The reference has no parallelism of any kind (SURVEY.md section 2.2); this module
-is the TPU-native scaling layer it lacks: the lattice grid axes are sharded over
-a 1d/2d/3d ``jax.sharding.Mesh`` so every stencil shift becomes a width-1 (or 2,
+is the scaling layer it lacks: the lattice grid axes are sharded over a
+1d/2d/3d ``jax.sharding.Mesh`` so every stencil shift becomes a width-1 (or 2,
 for the biharmonic operator) halo exchange that XLA's SPMD partitioner inserts
-over ICI automatically.  Coarse multigrid levels fall below the per-chip tile
+automatically.  Coarse multigrid levels fall below the per-device tile
 threshold and are replicated (the structured-grid analogue of coarse-grid
 agglomeration).
+
+The mesh only reshapes ``jax.devices()``.  On GPUs of one host joined all to
+all by NVLink every device pair is equally close, so the split between the
+chains axis and the lattice axes follows the algorithm alone (halo volume,
+agglomeration depth), not a physical topology.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ def lattice_mesh(
     dim: int, n_devices: Optional[int] = None, devices=None, mesh_shape=None
 ) -> Mesh:
     """A mesh over the last ``min(dim, 2)`` lattice axes (sharding the two
-    innermost axes keeps per-chip tiles large in the fastest-varying dims)."""
+    innermost axes keeps per-device tiles large in the fastest-varying dims)."""
     devices = devices if devices is not None else jax.devices()
     if n_devices is not None:
         devices = devices[:n_devices]
@@ -94,10 +99,9 @@ def init_distributed(
 ) -> int:
     """Initialise the multi-host runtime (``jax.distributed``).
 
-    On TPU pods the arguments auto-detect from the environment; on CPU/GPU
-    clusters pass them explicitly (or set JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID).  Safe to call more than once.
-    Returns the process count.
+    Pass the arguments explicitly (or set JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID); without them a single-process run
+    is assumed.  Safe to call more than once.  Returns the process count.
     """
     import os
 
@@ -132,10 +136,10 @@ def multihost_lattice_mesh(
     """Global ``chains x lattice`` mesh over every device of every host.
 
     Lays the lattice axes out over ``jax.devices()`` (which enumerates local
-    devices contiguously), so width-1 halo ``ppermute`` partners are ICI
-    neighbours within a host wherever possible and only the outermost lattice
-    axis crosses the DCN boundary - the layout SURVEY.md section 5 calls for.
-    Call :func:`init_distributed` first on every process.
+    devices contiguously), so width-1 halo ``ppermute`` partners sit on the
+    same host wherever possible and only the outermost lattice axis crosses
+    the network between hosts.  Call :func:`init_distributed` first on every
+    process.
     """
     devices = jax.devices()
     n = len(devices)

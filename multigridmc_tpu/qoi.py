@@ -9,6 +9,7 @@ actually compute inline (``driver_mgmc.cc:72-78``): a linear observation
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from .lattice import Lattice
@@ -32,7 +33,8 @@ class LinearQoI(QoI):
 
     def evaluate(self, x):
         d = self.weights.ndim
-        return jnp.tensordot(x, self.weights, axes=d)
+        return jnp.tensordot(x, self.weights, axes=d,
+                             precision=jax.lax.Precision.HIGHEST)
 
 
 class DomainAverageQoI(LinearQoI):

@@ -1,10 +1,10 @@
 """Sampler base interface.
 
-TPU-native counterpart of ``src/sampler/sampler.hh:23-85``.  Where the reference
+Counterpart of ``src/sampler/sampler.hh:23-85``.  Where the reference
 threads a single shared ``std::mt19937_64&`` through every sampler, here every
 ``apply`` takes an explicit ``jax.random`` key and the caller splits keys per
-step - deterministic, parallel-safe, and shardable (per-chip key folding happens
-inside Pallas kernels / shard_map when running distributed).
+step - deterministic, parallel-safe, and shardable (per-device key folding
+happens inside shard_map when running distributed).
 
 Samplers draw the next chain state ``x' ~ K(x, .)`` of a Markov chain whose
 stationary distribution is ``pi(x) ~ exp(-1/2 x^T A x + f^T x)``, i.e.
@@ -56,8 +56,7 @@ class MeanShiftedSampler(Sampler):
 
         x' = mean + K_0(x - mean, .)
 
-    Exact in expectation (the validated protocol B of BASELINE.md "Float32
-    statistical validation"); the covariance is untouched.  The rhs argument of
+    Exact in expectation; the covariance is untouched.  The rhs argument of
     ``apply`` is ignored - the wrapper represents the fixed target
     ``N(mean, Q^{-1})`` the caller built it with, matching reference semantics
     of ``driver_mgmc.cc:51-64`` where f = Q mean.

@@ -1,11 +1,9 @@
 """Affine distillation of the MGMC coarse subtree.
 
-Profiling (NOTES_R2.md) shows the production MGMC step spends ~60% of its
-time in an *op-count-bound* tail: the W-cycle's sub-level visits are ~1300
-tiny XLA ops on 31^2-127^2 fields whose cost is per-op latency, not flops or
-bandwidth.  Fusing that tail into one Pallas kernel measured 2x slower (the
-subtree-kernel negative result); this module removes the tail *structurally*
-instead.
+Below the finest levels the MGMC W-cycle is an *op-count-bound* tail: the
+sub-level visits are hundreds of tiny ops on 31^2-63^2 fields whose cost is
+per-op (kernel launch) latency, not flops or bandwidth.  This module removes
+that tail *structurally*.
 
 The key observation: the recursive cycle (``src/sampler/multigridmc_sampler.cc:
 103-130``) zero-initialises the coarse state at every recursion entry
@@ -23,7 +21,7 @@ recursion by
     x_l = T f_l + S xi',  xi' ~ N(0, I_n),  S = chol(C)
 
 is *distributionally identical* (same Markov transition kernel, hence the same
-exact stationary distribution N(Q^{-1} f, Q^{-1})), and costs two fat MXU
+exact stationary distribution N(Q^{-1} f, Q^{-1})), and costs two dense
 matmuls per invocation instead of hundreds of latency-bound ops.
 
 ``T`` and ``N`` are computed once at setup by **basis propagation**: run the
@@ -37,14 +35,13 @@ single matrix for the preconditioner.
 
 Applicability gate: storing T and S costs ``2 n^2`` floats and each invocation
 costs ``2 C n^2`` MACs, so distillation is restricted to sub-levels with
-``n <= MGMC_DISTILL_MAX_N`` (default 4160: a 64^2-cell level; at the flagship
-bench this replaces everything below the 127^2 level - 4 visits at 63^2,
-8 at 31^2 and 8 coarse Cholesky samples per step).
+``n <= MAX_N`` (4160: a 64^2-cell level; at the flagship bench this replaces
+everything below the 127^2 level - 4 visits at 63^2, 8 at 31^2 and 8 coarse
+Cholesky samples per step).
 """
 
 from __future__ import annotations
 
-import os
 from typing import List, Optional, Sequence, Tuple
 
 import jax
@@ -57,36 +54,35 @@ from ..smoothers import sor_sweep
 
 _HI = jax.lax.Precision.HIGHEST
 
-#: largest sub-level vertex count distilled by default (n^2 matrix storage,
-#: C n^2 MACs per invocation; 4160 admits the 63^2/64^2-cell levels).  None =
-#: resolve per device kind via utils.autotune (known-chip table + one-shot
-#: cached slope probe: the crossover is where streaming 2 n^2 floats of T/S
-#: per step exceeds the latency-bound composed subtree).  An int here (env
-#: MGMC_DISTILL_MAX_N or a monkeypatch) wins unconditionally.
-MAX_N = (int(os.environ["MGMC_DISTILL_MAX_N"])
-         if os.environ.get("MGMC_DISTILL_MAX_N") else None)
-
-
-def default_max_n() -> int:
-    if MAX_N is not None:
-        return int(MAX_N)
-    from ..utils.autotune import distill_max_n
-
-    return distill_max_n()
+#: largest sub-level vertex count distilled by default: storing T and S costs
+#: 2 n^2 floats and each invocation 2 C n^2 MACs for C chains; 4160 admits the
+#: 63^2/64^2-cell levels.  Not measured on the H100 yet: the crossover against
+#: the composed subtree has to be scanned per cell.
+MAX_N = 4160
 
 _PRECISIONS = {
     "default": jax.lax.Precision.DEFAULT,
     "high": jax.lax.Precision.HIGH,
     "highest": jax.lax.Precision.HIGHEST,
 }
-#: MXU precision of the runtime T/S matmuls.  Statistically validated on TPU
-#: (native/validate_distill_precision_tpu.py, 5.12M samples per setting,
-#: paired key streams): HIGH (bf16x3) is indistinguishable from HIGHEST
-#: (paired delta-var <= 0.001%, map perturbation 1.2e-5) and ~11% faster
-#: end-to-end; DEFAULT (single bf16 pass) biases the stationary variance by
-#: +0.26-0.67% (beyond the 2e-3 reference tolerance class,
-#: ``src/sampler/test_sampler.hh:170-173``) and stays opt-in only.
-PRECISION = _PRECISIONS[os.environ.get("MGMC_DISTILL_PRECISION", "high")]
+#: precision tier of the runtime T/S matmuls.  On a GPU, HIGH and DEFAULT run
+#: float32 products in TF32 (10-bit mantissa); the stationary-variance bias of
+#: the lower tiers has not been checked on the GPU, so the default is
+#: HIGHEST (exact float32 products).
+PRECISION = jax.lax.Precision.HIGHEST
+
+
+def resolve_precision(precision) -> jax.lax.Precision:
+    """A precision tier name, a ``jax.lax.Precision`` or None (the default)."""
+    if precision is None:
+        return PRECISION
+    if isinstance(precision, str):
+        if precision not in _PRECISIONS:
+            raise ValueError(
+                f"invalid distill precision '{precision}': expected one of "
+                f"{sorted(_PRECISIONS)}")
+        return _PRECISIONS[precision]
+    return precision
 
 
 # ------------------------------------------------------------------ sweep spec
@@ -286,8 +282,7 @@ class DistilledSubtree:
         self.vshape = vshape
         self.n = Tm.shape[0]
         self.info = level_info
-        self.precision = PRECISION if precision is None else (
-            _PRECISIONS[precision] if isinstance(precision, str) else precision)
+        self.precision = resolve_precision(precision)
 
     def apply(self, key, f: jax.Array) -> jax.Array:
         batch = f.shape[: f.ndim - len(self.vshape)]
@@ -355,7 +350,7 @@ def pick_distill_level(operators: Sequence[StencilOperator],
     budget; None if no strict sub-level qualifies or the hierarchy is too
     shallow to benefit (distilling only the coarsest level would replace a
     single Cholesky sample with an equal-cost matmul)."""
-    max_n = default_max_n() if max_n is None else max_n
+    max_n = MAX_N if max_n is None else max_n
     for li in range(1, len(operators) - 1):
         if operators[li].lattice.nvertex <= max_n:
             return li

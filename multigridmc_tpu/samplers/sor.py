@@ -1,6 +1,6 @@
 """Multi-colour SOR and SSOR Gibbs samplers.
 
-TPU-native counterpart of ``src/sampler/sor_sampler.{hh,cc}`` and
+Counterpart of ``src/sampler/sor_sampler.{hh,cc}`` and
 ``ssor_sampler.{hh,cc}``.  One stochastic sweep (cf. ``sor_sampler.cc:37-59``):
 
     c   = f + sqrt(D (2 - omega) / omega) . xi,      xi ~ N(0, I_n)
@@ -73,47 +73,10 @@ class SORSampler(Sampler):
             )
         return c
 
-    def _apply_pallas_batched(self, key: jax.Array, f: jax.Array, x: jax.Array) -> jax.Array:
-        """Fused batched path: the diagonal noise is drawn by the on-chip PRNG
-        inside the roll-based sweep kernel (one HBM pass per Gibbs sweep -
-        measured 1.7x the XLA sweep+rbg path, NOTES_R2.md); the (small)
-        low-rank noise term and the Woodbury correction stay outside."""
-        from ..ops.kernels.sor_pallas import seed_words
-        from ..ops.kernels.sor_pallas_v2 import gibbs_sweep_batched_v2
-
-        op = self.op
-        sm = self.smoother
-        vdim = len(op.vshape)
-        kx, kb = jax.random.split(key)
-        c = f
-        batch = x.shape[: x.ndim - vdim]
-        if op.lowrank is not None:
-            xi_lr = jax.random.normal(kb, batch + (op.m_lowrank,), dtype=x.dtype)
-            c = c + jnp.tensordot(
-                xi_lr * self.Sigma_inv_sqrt, op.lowrank.B,
-                axes=([xi_lr.ndim - 1], [0]),
-                precision=jax.lax.Precision.HIGHEST,
-            )
-        xf = x.reshape((-1,) + op.vshape)
-        cf = jnp.broadcast_to(c, x.shape).reshape(xf.shape)
-        # one full-entropy seed per chain (the kernel consumes one per chain
-        # block); distinct per sweep via the folded-in step key
-        seeds = jax.vmap(seed_words)(jax.random.split(kx, xf.shape[0]))
-        out = gibbs_sweep_batched_v2(seeds, op.coeffs, cf, xf, **sm._kernel_params())
-        x = out.reshape(batch + op.vshape)
-        if sm.B_bar is not None:
-            x = sm._lowrank_correct(x)
-        return x
-
     def apply(self, key: jax.Array, f: jax.Array, x: jax.Array) -> jax.Array:
-        vdim = len(self.op.vshape)
         for k in range(self.nsmooth):
-            kk = jax.random.fold_in(key, k)
-            if self.smoother.use_pallas_batched and x.ndim > vdim:
-                x = self._apply_pallas_batched(kk, f, x)
-            else:
-                c = self.random_rhs(kk, f, x)
-                x = self.smoother.apply(c, x)
+            c = self.random_rhs(jax.random.fold_in(key, k), f, x)
+            x = self.smoother.apply(c, x)
         return x
 
 

@@ -1,6 +1,6 @@
 """Multi-colour SOR / SSOR smoothers.
 
-TPU-native counterpart of ``src/smoother/sor_smoother.{hh,cc}`` and
+Counterpart of ``src/smoother/sor_smoother.{hh,cc}`` and
 ``ssor_smoother.{hh,cc}``.  The reference's lexicographic CSR sweep
 (``sor_smoother.cc:56-78``) is inherently sequential; here the sweep order is a
 multi-colour order (see :mod:`multigridmc_tpu.ops.coloring`), so one sweep is
@@ -26,7 +26,6 @@ block-triangular in the colour order.
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Tuple
 
 import jax
@@ -37,10 +36,6 @@ from .ops.stencil import StencilOperator
 
 FORWARD = "forward"
 BACKWARD = "backward"
-
-#: smallest grid extent for which the batched Pallas sweep kernels beat XLA
-#: (below this the per-kernel overhead outweighs the saved HBM passes)
-MIN_PALLAS_EXTENT = 31
 
 
 def color_order(n_colors: int, direction: str) -> Tuple[int, ...]:
@@ -128,50 +123,8 @@ class SORSmoother:
             if op.lowrank is not None
             else None
         )
-        # Isolated Pallas sweep kernels are OFF by default (MGMC_PALLAS=1
-        # opts in; MGMC_PALLAS_INTERPRET=1 additionally enables them on CPU
-        # for tests).  Slope-measured on v5e (NOTES_R2.md "LATE-ROUND
-        # CORRECTION"): the roll-based v2 kernel wins 4.0x in isolation at
-        # 256 x 255^2, but *in the production cycle* XLA fuses the noise /
-        # Woodbury / residual passes around its sweep and the isolated kernel
-        # loses that fusion (L0 1.55 vs 1.46 ms) while small levels pay pure
-        # kernel overhead (L3 0.161 vs 0.019 ms).  Single-chain sweeps always
-        # stay on XLA (0.7 us vs 2-4.6 us per 255^2 sweep).  The production
-        # win is the *fused level-visit* kernel family
-        # (ops/kernels/mgmc_visit_pallas.py), which swallows the whole
-        # noise+sweep+Woodbury+residual visit so there is no boundary to
-        # lose fusion across.
-        self._pallas_interpret = False
-        self.use_pallas_batched = False
-        if os.environ.get("MGMC_PALLAS", "0") == "1" and min(op.vshape) >= MIN_PALLAS_EXTENT:
-            from .ops.kernels import sor_pallas_v2
-
-            if sor_pallas_v2.supports_v2(op.vshape, op.coeffs.dtype, len(op.offsets)):
-                backend = jax.default_backend()
-                if backend == "cpu" and os.environ.get("MGMC_PALLAS_INTERPRET", "0") == "1":
-                    self.use_pallas_batched, self._pallas_interpret = True, True
-                elif backend != "cpu":
-                    self.use_pallas_batched = True
-
-    def _kernel_params(self) -> dict:
-        return dict(
-            offsets=self.op.offsets, diag_index=self.op.diag_index,
-            omega=self.omega, order=self.order,
-            color_weights=self.coloring.weights,
-            n_colors=self.coloring.n_colors,
-            interpret=self._pallas_interpret,
-        )
 
     def sweep_stencil(self, b: jax.Array, x: jax.Array) -> jax.Array:
-        vdim = len(self.op.vshape)
-        if self.use_pallas_batched and x.ndim > vdim:
-            from .ops.kernels.sor_pallas_v2 import sweep_batched_v2
-
-            batch = x.shape[:-vdim]
-            xf = x.reshape((-1,) + self.op.vshape)
-            bf = jnp.broadcast_to(b, x.shape).reshape(xf.shape)
-            out = sweep_batched_v2(self.op.coeffs, bf, xf, **self._kernel_params())
-            return out.reshape(batch + self.op.vshape)
         return sor_sweep(self.op, self.masks, self.omega, self.order, b, x)
 
     def _lowrank_correct(self, x: jax.Array) -> jax.Array:

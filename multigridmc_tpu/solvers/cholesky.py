@@ -1,8 +1,8 @@
 """Direct Cholesky solvers.
 
-TPU-native counterpart of ``src/solver/cholesky_solver.{hh,cc}`` plus the
-factorisation backends of ``src/auxilliary/cholesky_wrapper.{hh,cc}``.  On TPU
-there is no supernodal sparse LLT; the design (SURVEY.md section 7) is:
+Counterpart of ``src/solver/cholesky_solver.{hh,cc}`` plus the
+factorisation backends of ``src/auxilliary/cholesky_wrapper.{hh,cc}``.  There
+is no supernodal sparse LLT on the device; the design (SURVEY.md section 7) is:
 
 * coarse-level / small systems: **dense** on-device Cholesky (the only place the
   reference ever factorises inside multigrid is the tiny coarsest level,
@@ -30,17 +30,21 @@ class DenseCholeskySolver:
     """Dense LLT solve of the stencil part + Woodbury low-rank correction."""
 
     def __init__(self, op: StencilOperator):
+        import scipy.linalg
+
         self.op = op
         dtype = op.coeffs.dtype
-        A = jnp.asarray(op.to_dense_stencil(), dtype=dtype)
-        self.L = jnp.linalg.cholesky(A)
+        # factor and Woodbury pieces on the host in float64 (setup only)
+        A = op.to_dense_stencil()
+        L = np.linalg.cholesky(A)
+        self.L = jnp.asarray(L, dtype=dtype)
         self.B_bar = None
         if op.lowrank is not None:
-            B = op.lowrank.B.reshape(op.m_lowrank, -1).T  # (n, m)
-            Ainv_B = jax.scipy.linalg.cho_solve((self.L, True), B)
-            S = jnp.diag(op.lowrank.Sigma_diag) + B.T @ Ainv_B
-            self.B_bar = Ainv_B @ jnp.linalg.inv(S)  # (n, m)
-            self.B_flat = B
+            B = np.asarray(op.lowrank.B, dtype=np.float64).reshape(op.m_lowrank, -1).T
+            Ainv_B = scipy.linalg.cho_solve((L, True), B)  # (n, m)
+            S = np.diag(np.asarray(op.lowrank.Sigma_diag, dtype=np.float64)) + B.T @ Ainv_B
+            self.B_bar = jnp.asarray(Ainv_B @ np.linalg.inv(S), dtype=dtype)
+            self.B_flat = jnp.asarray(B, dtype=dtype)
 
     def apply(self, b: jax.Array) -> jax.Array:
         """Solve ``A x = b`` for a grid field b, supporting leading batch dims
@@ -51,7 +55,9 @@ class DenseCholeskySolver:
         bf = b.reshape((-1, n)).T  # (n, nbatch)
         y = jax.scipy.linalg.cho_solve((self.L, True), bf)
         if self.B_bar is not None:
-            y = y - self.B_bar @ (self.B_flat.T @ y)
+            hi = jax.lax.Precision.HIGHEST
+            y = y - jnp.matmul(self.B_bar, jnp.matmul(self.B_flat.T, y, precision=hi),
+                               precision=hi)
         return y.T.reshape(shape)
 
 
@@ -82,7 +88,7 @@ class BandCholeskySolver:
         if op.lowrank is not None:
             m = op.m_lowrank
             B = np.asarray(op.lowrank.B, dtype=np.float64).reshape(m, -1).T  # (n, m)
-            Ainv_B = _np_band_solve(cb, self.bandwidth, B)
+            Ainv_B = _np_band_solve(cb, B)
             S = np.diag(np.asarray(op.lowrank.Sigma_diag, dtype=np.float64)) + B.T @ Ainv_B
             self.B_bar = jnp.asarray(Ainv_B @ np.linalg.inv(S), dtype=dtype)
             self.B_flat = jnp.asarray(B, dtype=dtype)

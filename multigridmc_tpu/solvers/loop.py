@@ -1,6 +1,6 @@
 """Iterative solvers: preconditioned Richardson (LoopSolver) and CG.
 
-TPU-native counterpart of ``src/solver/loop_solver.{hh,cc}`` and
+Counterpart of ``src/solver/loop_solver.{hh,cc}`` and
 ``iterative_solver.hh``.  Two execution modes:
 
 * :meth:`LoopSolver.solve` - host-driven loop with per-iteration residual /

@@ -158,11 +158,12 @@ def measure_baseline_main(argv=None):
 
     Run as ``python -m multigridmc_tpu.utils.baseline_export NX NLEVEL CYCLE
     NWARMUP NSAMPLES`` - used by bench.py in a subprocess so the float64 CPU
-    work never touches the TPU backend.
+    work never touches the accelerator.
     """
     import json
     import subprocess
     import sys
+    import tempfile
     from pathlib import Path
 
     import jax
@@ -176,14 +177,15 @@ def measure_baseline_main(argv=None):
     import bench  # repo-root bench module defines the canonical problem
 
     bench.NX = nx  # build_problem reads the module constant at call time
-    op = bench.build_problem(dtype=np.float64)
+    op = bench.build_problem()
     from ..solvers.multigrid import MultigridHierarchy
 
     hierarchy = MultigridHierarchy(op, nlevel)
-    problem_path = "/tmp/mgmc_baseline_problem.bin"
+    workdir = Path(tempfile.mkdtemp(prefix="mgmc_baseline_"))
+    problem_path = str(workdir / "problem.bin")
     export_problem(hierarchy, problem_path, omega=1.0, cycle=cycle)
 
-    binary = Path("/tmp/baseline_mgmc")
+    binary = workdir / "baseline_mgmc"
     src = Path(__file__).resolve().parents[2] / "native" / "baseline_mgmc.cc"
     subprocess.run(
         ["g++", "-O3", "-march=native", "-std=c++17", "-o", str(binary), str(src)],

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing - chains are regenerated from fixed seeds
 (SURVEY.md section 5; ``driver_mgmc.cc:448-449``).  For long production sampling
-runs on TPU this module adds durable chain state: the sampler state is just
+runs this module adds durable chain state: the sampler state is just
 ``(x, key, step)`` (plus accumulated statistics), saved as a compressed npz with
 integrity metadata and restored exactly - resuming a chain continues the same
 Markov chain (the kernel is memoryless given ``(x, key)``).
@@ -41,7 +41,7 @@ class ChainState:
             else np.asarray(self.key),
             "step": np.asarray(self.step),
         }
-        # record the PRNG impl so non-default keys (e.g. 'rbg' on sharded TPU
+        # record the PRNG impl so non-default keys (e.g. 'rbg' on accelerator
         # runs) resume with the same random stream; raw uint32 keys round-trip
         # as raw arrays rather than being silently wrapped
         meta = {

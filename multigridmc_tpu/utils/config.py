@@ -1,6 +1,6 @@
 """Configuration system: a libconfig-subset parser plus typed parameter groups.
 
-TPU-native counterpart of ``src/auxilliary/parameters.{hh,cc}``.  The reference
+Counterpart of ``src/auxilliary/parameters.{hh,cc}``.  The reference
 uses libconfig files (``parameters_template.cfg``) referencing a second
 measurements file (``measurements_template.cfg``, cf. ``parameters.cc:267-316``);
 this module parses the same file syntax (groups ``{...}``, ``key = value;``,
@@ -123,8 +123,9 @@ class GeneralParameters:
     save_posterior_statistics: bool = False
     measure_convergence: bool = False
     operator: str = "posterior"  # "prior" or "posterior"
-    # float32 zero-mean protocol (BASELINE.md): "auto" enables it whenever the
-    # run is float32 (TPU default), "on"/"off" force it.  Avoids the
+    # float32 zero-mean protocol (samplers/base.py MeanShiftedSampler) for
+    # every sampler of the driver: "auto" enables it whenever the run is
+    # float32 (the accelerator default), "on"/"off" force it.  Avoids the
     # O(cond(Q)*eps32) mean bias of direct-rhs f32 sampling while keeping
     # reference semantics (driver_mgmc.cc:51-64) in float64 runs untouched.
     mean_shift: str = "auto"
@@ -139,7 +140,9 @@ class LatticeParameters:
 
 @dataclasses.dataclass
 class CholeskyParameters:
-    factorisation: str = "sparse"  # "sparse" or "dense" (parameters.hh:87-91)
+    # "sparse" or "dense" (parameters.hh:87-91); "band" names the sparse
+    # choice by what it is here: an exact band factorisation
+    factorisation: str = "sparse"
 
 
 @dataclasses.dataclass
@@ -160,7 +163,7 @@ class IterativeSolverParamGroup:
 class MultigridParameters:
     """cf. ``MultigridParameters`` (``parameters.hh:145-174``).
 
-    Two TPU-native extension keys beyond the reference's block:
+    Two extension keys beyond the reference's block:
 
     * ``sweep_schedule`` - ``"fixed"`` (reference parity, default) or
       ``"alternating"``: odd steps swap the pre/post sweep directions.
@@ -168,13 +171,11 @@ class MultigridParameters:
       (docs/CONVERGENCE.md): alternating at omega=1.4 contracts q_mean at
       0.505/step vs 0.617 fixed-colored and 0.685 lexicographic - a ~2x
       warmup reduction at identical per-step cost.
-    * ``distill_precision`` - MXU precision of the distilled coarse-subtree
-      matmuls: ``"highest"`` (f32-exact), ``"high"`` (bf16x3, statistically
-      indistinguishable at 5.12M samples, ~11% faster), or ``"default"``
-      (single bf16 pass, ~9% faster again but carries a measured
-      +0.26-0.67% stationary-variance bias - opt-in only).  Unset (None)
-      defers to the ``MGMC_DISTILL_PRECISION`` env var (default "high") -
-      so the env knob keeps working unless the config file pins a tier.
+    * ``distill_precision`` - matmul precision of the distilled
+      coarse-subtree products: ``"highest"`` (exact float32 products, the
+      default when unset), ``"high"`` or ``"default"``.  On a GPU the two
+      lower tiers run in TF32 (10-bit mantissa); their stationary-variance
+      bias has not been measured there, so they are opt-in only.
     """
 
     smoother: str = "SOR"

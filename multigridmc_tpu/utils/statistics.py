@@ -1,6 +1,6 @@
 """Online vector-valued chain statistics.
 
-TPU-native counterpart of ``src/auxilliary/statistics.{hh,cc}``: running mean and
+Counterpart of ``src/auxilliary/statistics.{hh,cc}``: running mean and
 second moment (Welford-style incremental updates, ``statistics.cc:4-39``),
 covariance estimator (``:42-45``), windowed autocovariance C(k) over the last
 k_max samples (``:53-62``), and the integrated autocorrelation time tau_int in a
@@ -11,7 +11,9 @@ Two implementations:
 * :class:`Statistics` - host-side incremental recorder with the reference's
   exact update formulas, for drivers and diagnostics;
 * :func:`chain_statistics_scan` - a jit-able ``lax.scan`` accumulator for whole
-  batched chains on device (used by the statistical test oracle and bench).
+  batched chains on device (used by the statistical test oracle and bench);
+* :func:`tau_int_chains` - the reference's tau_int estimator for a scalar
+  observable recorded from many parallel chains.
 """
 
 from __future__ import annotations
@@ -101,6 +103,24 @@ class Statistics:
         lines.append(f" {self.label}: window      = {self.autocorr_window()}")
         lines.append(f" {self.label}: # samples   = {self.samples()}")
         return "\n".join(lines)
+
+
+def tau_int_chains(z, k_max: int) -> float:
+    """Integrated autocorrelation time of a scalar observable ``z`` of shape
+    ``(nsteps, nchains)``: the estimator of :meth:`Statistics.tau_int` with
+    window ``k_max`` (``statistics.cc:53-79``), its averages taken over every
+    chain as well as over time.  The series is centred first: on short
+    series the reference's ``S_k - avg^2`` form is not shift-invariant, and a
+    large mean then swamps the lagged covariances."""
+    z = np.asarray(z, dtype=np.float64)
+    z = z - z.mean()
+    nsteps = z.shape[0]
+    k_max = min(int(k_max), nsteps)
+    C = [np.mean(z[k:] * z[: nsteps - k]) for k in range(k_max)]
+    tau = 1.0
+    for k in range(1, k_max):
+        tau += 2.0 * (1.0 - k / k_max) * C[k] / C[0]
+    return float(tau)
 
 
 def chain_statistics_scan(step_fn, x0, keys, observe_fn=None):

@@ -1,6 +1,6 @@
 """Legacy-ASCII VTK output of lattice fields.
 
-TPU-native counterpart of ``src/auxilliary/vtk_writer{,2d,3d}.{hh,cc}``: writes
+Counterpart of ``src/auxilliary/vtk_writer{,2d,3d}.{hh,cc}``: writes
 ``STRUCTURED_POINTS`` datasets over the full vertex grid (boundary vertices
 emitted as zero, origin shifted by -0.5 as in ``vtk_writer2d.cc:8-53`` /
 ``vtk_writer3d.cc:8-60``), plus the POLYDATA circle marker for the sample

@@ -6,7 +6,8 @@ processes x 4 virtual CPU devices each form one 8-device global mesh
 (chains=2 x ly=2 x lx=2), and the full explicit-halo MGMC W-cycle
 (``parallel/cycle.py``) runs across the process boundary - per-colour
 ``ppermute`` halos, the ``B^T x`` psum and the coarse agglomeration
-``all_gather`` all cross processes (DCN-equivalent on gloo CPU collectives).
+``all_gather`` all cross processes (gloo CPU collectives stand in for the
+network between hosts).
 
 Correctness gate: in "global" noise mode the cycle's trajectory is
 mesh-shape-independent by construction, so every process asserts its local
@@ -36,8 +37,6 @@ LOCAL_DEVICES = 4
 def worker(proc_id: int, port: int) -> None:
     import jax
 
-    # the session env may pin an experimental TPU platform; env vars do not
-    # override it - only jax.config does
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", LOCAL_DEVICES)
 

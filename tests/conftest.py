@@ -1,11 +1,11 @@
 """Test configuration: CPU backend with 8 virtual devices and float64.
 
-Tests run on a virtual 8-device CPU mesh (the driver validates real multi-chip
-sharding separately via ``__graft_entry__.dryrun_multichip``) and in float64 so
+Tests run on a virtual 8-device CPU mesh (multi-device sharding on real cards is
+checked by ``chip_smoke.py --four``) and in float64 so
 the deterministic oracles (smoother fixed points at 1e-12, solver tolerances at
 1e-13, cf. SURVEY.md section 4) are meaningful.  Must run before jax backends
-initialise; the session environment may pin an experimental TPU platform, so the
-platform is forced through jax.config (env vars alone are overridden)."""
+initialise; the platform is forced through jax.config as well as the
+environment."""
 
 import os
 

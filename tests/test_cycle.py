@@ -305,7 +305,7 @@ def test_sharded_sampler_statistics_biharmonic():
 
 
 def test_sharded_distilled_subtree_statistics():
-    """VERDICT r4 #5: with the replicated coarse subtree swapped for its
+    """With the replicated coarse subtree swapped for its
     distilled affine-Gaussian map (distill=True forces past the CPU auto
     gate), the production sharded-noise W-cycle still targets the exact
     posterior.  Level 1 is replicated (agglomerate_below=8) and is the

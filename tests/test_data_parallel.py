@@ -1,33 +1,22 @@
 """Chains-data-parallel execution (parallel/data_parallel.py).
 
-Three gates:
+Two gates:
 
-1. the fused level-visit Pallas kernels execute correctly *inside shard_map*
-   over a multi-device mesh (deterministic data path, interpret mode - the
-   stochastic kernels' on-chip PRNG has no CPU lowering and is validated on
-   TPU by native/validate_dp_tpu.py);
-2. the DP sampler is a valid sampler: statistical mean/covariance gate
+1. the DP sampler is a valid sampler: statistical mean/covariance gate
    (``test_sampler.hh:113-153``) across 8 shards with per-shard key streams;
-3. per-shard streams are independent and the wrapper is deterministic.
+2. per-shard streams are independent and the wrapper is deterministic.
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from jax.sharding import Mesh, PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:
-    from jax.experimental.shard_map import shard_map
 
 from multigridmc_tpu.lattice import Lattice
 from multigridmc_tpu.models.correlation import ConstantCorrelationLengthModel
 from multigridmc_tpu.models.posterior import MeasurementParameters, measured_operator
 from multigridmc_tpu.models.prior import shiftedlaplace_fd
 from multigridmc_tpu.parallel.data_parallel import DataParallelMGMCSampler, chains_mesh
-from multigridmc_tpu.solvers.multigrid import MultigridPreconditioner
 
 from test_sampler import make_posterior_2d, mean_covariance_error, tier
 
@@ -45,41 +34,10 @@ def _posterior_f32(nx=24):
     return measured_operator(prior, params)
 
 
-def test_fused_visits_inside_shard_map():
-    """The fused kernels run per shard inside shard_map and reproduce the
-    composed path: a multigrid preconditioner cycle with fused interpret
-    kernels forced on, executed per-shard over an 8-device chains mesh,
-    equals the unsharded composed cycle (deterministic data path)."""
-    op = _posterior_f32()
-    pc_fused = MultigridPreconditioner(
-        op, nlevel=3, smoother="SOR", cycle=2,
-        fused=True, fused_min_vertices=0, fused_interpret=True, distill=False,
-    )
-    assert pc_fused.fused_levels, "fused kernels did not activate under force"
-    pc_ref = MultigridPreconditioner(op, nlevel=3, smoother="SOR", cycle=2,
-                                     fused=False, distill=False)
-    mesh = chains_mesh(8)
-    vdim = 2
-    spec = P("chains", *([None] * vdim))
-
-    try:  # pallas_call inside shard_map needs vma checking off
-        fn = shard_map(pc_fused.apply, mesh=mesh, in_specs=(spec,),
-                       out_specs=spec, check_vma=False)
-    except TypeError:  # older jax: check_rep
-        fn = shard_map(pc_fused.apply, mesh=mesh, in_specs=(spec,),
-                       out_specs=spec, check_rep=False)
-    rng = np.random.default_rng(1)
-    b = jnp.asarray(rng.normal(size=(16,) + op.vshape), jnp.float32)
-    out = jax.jit(fn)(b)
-    exp = pc_ref.apply(b)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(exp),
-                               rtol=2e-5, atol=2e-5)
-
-
 def test_dp_sampler_deterministic_and_independent():
     op = _posterior_f32()
     mesh = chains_mesh(8)
-    dp = DataParallelMGMCSampler(op, nlevel=3, mesh=mesh, fused=False,
+    dp = DataParallelMGMCSampler(op, nlevel=3, mesh=mesh,
                                  distill=True, cycle=2, smoother="SOR")
     assert dp.sampler.distilled is not None
     rng = np.random.default_rng(2)
@@ -103,11 +61,11 @@ def test_dp_sampler_deterministic_and_independent():
 def test_dp_sampler_statistical_gate():
     """The DP sampler passes the reference mean/covariance oracle: 8 shards x
     chains with per-shard independent streams and the distilled subtree
-    active per shard (fused kernels off on CPU - no PRNG lowering)."""
+    active per shard."""
     op = make_posterior_2d(8)
     mesh = chains_mesh(8)
     dp = DataParallelMGMCSampler(
-        op, nlevel=3, mesh=mesh, fused=False, distill=True,
+        op, nlevel=3, mesh=mesh, distill=True,
         smoother="SSOR", cycle=2,
     )
     nchains, nsteps, tol = tier(1024, 400, 4e-3)

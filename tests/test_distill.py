@@ -166,3 +166,69 @@ def test_distilled_preconditioner_in_solver():
     )
     res = solver.solve(b)
     assert res.converged, res.rnorm
+
+
+# ------------------------------------------------ engine choice and precision
+def _on_one_gpu(monkeypatch):
+    """Let the auto gates see an accelerator."""
+    from multigridmc_tpu.samplers import mgmc
+    from multigridmc_tpu.solvers import multigrid
+
+    monkeypatch.setattr(mgmc, "on_accelerator", lambda: True)
+    monkeypatch.setattr(multigrid, "on_accelerator", lambda: True)
+
+
+def test_distill_auto_is_off_on_cpu():
+    op = make_posterior()
+    assert MultigridMCSampler(op, nlevel=4, smoother="SOR").distilled is None
+    assert MultigridPreconditioner(op, nlevel=4, smoother="SOR").distilled is None
+
+
+def test_distill_default_precision_on_gpu_is_highest(monkeypatch):
+    """On one GPU the auto gate distils the subtree, and its matmuls default
+    to HIGHEST: the lower tiers run TF32 there and their bias is unchecked."""
+    _on_one_gpu(monkeypatch)
+    sampler = MultigridMCSampler(make_posterior(), nlevel=4, smoother="SOR")
+    assert sampler.distilled is not None
+    assert sampler.distilled.precision == jax.lax.Precision.HIGHEST
+
+
+def test_preconditioner_auto_distills_on_gpu(monkeypatch):
+    _on_one_gpu(monkeypatch)
+    pc = MultigridPreconditioner(make_posterior(), nlevel=4, smoother="SOR")
+    assert pc.distilled is not None
+    assert pc.distilled.precision == jax.lax.Precision.HIGHEST
+
+
+@pytest.mark.parametrize("tier,expected", [
+    ("highest", jax.lax.Precision.HIGHEST),
+    ("high", jax.lax.Precision.HIGH),
+    ("default", jax.lax.Precision.DEFAULT),
+])
+def test_distill_precision_tiers(monkeypatch, tier, expected):
+    """An explicit tier reaches the distilled map."""
+    _on_one_gpu(monkeypatch)
+    sampler = MultigridMCSampler(make_posterior(), nlevel=4, smoother="SOR",
+                                 distill_precision=tier)
+    assert sampler.distilled.precision == expected
+
+
+def test_distill_precision_invalid_tier():
+    from multigridmc_tpu.samplers.distill import resolve_precision
+
+    with pytest.raises(ValueError, match="invalid distill precision"):
+        resolve_precision("bf16")
+
+
+def test_config_without_distill_precision_is_highest(tmp_path):
+    """A config that names no tier gets HIGHEST, whatever the environment."""
+    from multigridmc_tpu.utils.config import load_config
+
+    cfg = tmp_path / "p.cfg"
+    cfg.write_text('multigrid = { nlevel = 4; cycle = 2; };\n')
+    config = load_config(cfg)
+    assert config.multigrid.distill_precision is None
+    sampler = MultigridMCSampler(make_posterior(), nlevel=config.multigrid.nlevel,
+                                 smoother="SOR", distill=True,
+                                 distill_precision=config.multigrid.distill_precision)
+    assert sampler.distilled.precision == jax.lax.Precision.HIGHEST

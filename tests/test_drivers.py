@@ -72,7 +72,7 @@ def config_dir(tmp_path_factory):
 
 
 def run_driver(module, cfg, cwd, timeout=420):
-    env = dict(os.environ, MGMC_PLATFORM="cpu", PYTHONPATH=str(REPO))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     return subprocess.run(
         [sys.executable, "-m", module, str(cfg)],
         capture_output=True, text=True, cwd=str(cwd), env=env, timeout=timeout,

@@ -1,5 +1,5 @@
 """Sweep-schedule tests: the alternating pre/post direction schedule and the
-distill precision tier (round-4 verdict items 4 and 5).
+distill precision tier.
 
 The alternating schedule (docs/CONVERGENCE.md round-4 scan) is a
 step-dependent composition of two valid MGMC kernels - even steps use the
@@ -10,6 +10,8 @@ engine is exactly the pre/post-swapped cycle, (b) the composed chain passes
 the reference's statistical oracle (``test_sampler.hh:113-153``), and (c) the
 config key reaches the sampler.
 """
+
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -128,9 +130,9 @@ def test_sweep_schedule_config_key(tmp_path):
 
     import shutil
 
-    shutil.copy("/root/reference/parameters_template.cfg",
-                tmp_path / "params.cfg")
-    shutil.copy("/root/reference/measurements_template.cfg",
+    fixtures = Path(__file__).resolve().parent / "fixtures"
+    shutil.copy(fixtures / "parameters_template.cfg", tmp_path / "params.cfg")
+    shutil.copy(fixtures / "measurements_template.cfg",
                 tmp_path / "measurements_template.cfg")
     text = (tmp_path / "params.cfg").read_text()
     assert "sweep_schedule" not in text

@@ -1,7 +1,7 @@
 """Multi-chip sharding tests on the virtual 8-device CPU mesh.
 
 The reference is strictly single-core (SURVEY.md section 2.2); scaling over a
-device mesh is a new first-class component of the TPU build.  These tests verify
+device mesh is a new first-class component of this build.  These tests verify
 that lattice-sharded execution is *numerically identical* to single-device
 execution: stencil apply, smoother sweeps, and the full MGMC step (same keys =>
 same samples, up to reduction order)."""

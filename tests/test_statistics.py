@@ -76,3 +76,36 @@ def test_incremental_matches_batch():
         stat.record_sample(s)
     np.testing.assert_allclose(stat.average(), samples.mean(axis=0), rtol=1e-10)
     np.testing.assert_allclose(stat.covariance(), np.cov(samples.T, ddof=1), rtol=1e-8)
+
+
+def test_tau_int_chains_matches_reference_estimator():
+    """One centred chain: the multi-chain estimator is the reference's
+    ``Statistics.tau_int`` (``statistics.cc:65-79``) with the same window."""
+    from multigridmc_tpu.utils.statistics import tau_int_chains
+
+    rng = np.random.default_rng(3)
+    z = np.zeros(4000)
+    for t in range(1, len(z)):
+        z[t] = 0.7 * z[t - 1] + rng.normal()
+    z -= z.mean()
+    stats = Statistics("z", 40)
+    for v in z:
+        stats.record_sample([v])
+    assert tau_int_chains(z[:, None], 40) == pytest.approx(stats.tau_int([1.0]), rel=1e-9)
+
+
+def test_tau_int_chains_pools_chains_and_ignores_the_mean():
+    """Many short AR(1) chains with a large common mean: the pooled estimate
+    recovers tau = (1 + rho) / (1 - rho) (the window's (1 - k/K) weights
+    bias it slightly low)."""
+    from multigridmc_tpu.utils.statistics import tau_int_chains
+
+    rng = np.random.default_rng(4)
+    rho, nsteps, nchains = 0.5, 400, 256
+    z = np.zeros((nsteps, nchains))
+    z[0] = rng.normal(size=nchains) / np.sqrt(1 - rho**2)
+    for t in range(1, nsteps):
+        z[t] = rho * z[t - 1] + rng.normal(size=nchains)
+    tau = tau_int_chains(z + 100.0, 50)
+    assert tau == pytest.approx(tau_int_chains(z, 50), rel=1e-9)
+    assert 2.7 < tau < 3.1

@@ -154,7 +154,7 @@ def test_measurement_vector_radius0_nearest_vertex():
 
 def test_chain_checkpoint_key_impl_roundtrip(tmp_path):
     """Non-default PRNG impls and raw uint32 keys survive save/load exactly
-    (ADVICE r1: impl was silently dropped)."""
+    (the impl was once silently dropped)."""
     import jax
     from multigridmc_tpu.utils.checkpoint import ChainState
 
